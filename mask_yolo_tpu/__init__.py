@@ -1,6 +1,6 @@
-"""mask_yolo_tpu — a TPU-native instance-segmentation framework.
+"""mask_yolo_tpu — an instance-segmentation framework in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the Mask-YOLO architecture
+A from-scratch JAX/XLA rebuild of the Mask-YOLO architecture
 (one-stage YOLOv2 anchor-grid detector + Mask R-CNN-style mask branch on a
 truncated MobileNetV1 backbone). Public surface mirrors the reference
 (/root/reference/myolo): `Config`, `MaskYOLO`, dataset classes, and

@@ -286,7 +286,7 @@ def as_augmenter(augmentation):
 def default_augmenter(seed: int | None = 0) -> Sequential:
     """The flip/rot90/scale/brightness set named by the round-1 review:
     a reasonable default for small datasets (it produced the +0.06 AP50
-    jump recorded in docs/PERFORMANCE.md for Shapes)."""
+    jump recorded in docs/QUALITY.md for Shapes)."""
     return Sequential([
         Fliplr(0.5),
         Rot90(),

@@ -14,9 +14,9 @@ that operating point:
     the class is a crisp, learnable pixel signal — an earlier "color
     octant of a uniform-random color" scheme had so much intra-class
     variance that a from-scratch 25-epoch run scored AP ≈ 0 despite 0.41
-    recall (docs/PERFORMANCE.md, r3);
-  * scenes carry up to `max_instances` small shapes (default 48, well past
-    CocoStyleConfig.MASK_TOP_K = 32, stressing the masks-for-top-K path);
+    recall (docs/QUALITY.md, "80-class operating point");
+  * scenes carry up to `max_instances` small shapes (default 48, equal to
+    CocoStyleConfig.MASK_TOP_K, filling the masks-for-top-K path);
   * same deterministic seeding, occlusion painting and GT-overlap pruning as
     the base Shapes generator;
   * optional PHOTOGRAPHIC-COMPLEXITY mode (`load_dense(textured=True)`,

@@ -34,8 +34,8 @@ class ShapesConfig(Config):
     N_BOX = 3
     TRAIN_ROIS_PER_IMAGE = Config.GRID_H * Config.GRID_W * 3
     # mini-masks: ship 56²-cropped GT masks instead of full 224² canvases —
-    # ~16× less host→device transfer on the upload-bound training path
-    # (docs/PERFORMANCE.md "Training"); the device-side target crop handles
+    # ~16× less host→device transfer on the training path; the
+    # device-side target crop handles
     # both representations (ops/target_assign.py)
     USE_MINI_MASK = True
     # mask branch on the 32 best assignment slots during training (≥ 3× the

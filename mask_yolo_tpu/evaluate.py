@@ -126,7 +126,7 @@ def make_ap_eval_callback(eval_dataset, config, every: int = 5,
     """Build a MaskYOLO.train `custom_callbacks` entry that evaluates pooled
     AP on `eval_dataset` every `every` epochs with the in-flight weights.
 
-    Motivation (measured, docs/PERFORMANCE.md "80-class operating point"):
+    Motivation (measured, docs/QUALITY.md "80-class operating point"):
     val_loss is a misleading model-selection signal for this detector — on
     the 81-class run it bottomed at epoch 18 and *rose* 2.9 → 3.9 while box
     AP50 kept climbing 0.13 → 0.31. Early stopping or best-checkpoint

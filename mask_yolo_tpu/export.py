@@ -2,20 +2,19 @@
 
 The reference deploys by shipping Python + Keras + an .h5 file and rebuilding
 the graph in every process (/root/reference/myolo/model.py:756-803 — even
-`detect` re-instantiates the Keras model per call-site script). The TPU-native
+`detect` re-instantiates the Keras model per call-site script). Here the
 deployment story is ahead-of-time export: `jax.export` traces the fully
-on-chip image→boxes+masks pipeline (pipelines.detect_outputs) ONCE, bakes the
-weights in as module constants, and serializes the StableHLO program to
-bytes. A serving process then needs only `jax` — no flax module tree, no
-framework model code, no weight files, no re-trace — and the artifact is
-guarded by jax.export's forward/backward-compatibility contract for
-serialized StableHLO.
+on-device image→boxes+masks pipeline (pipelines.detect_outputs) ONCE, bakes
+the weights in as module constants, and serializes the StableHLO program to
+bytes. A serving process then needs only `jax` — no module tree, no
+framework model code, no weight files, no re-trace — and the program is
+versioned StableHLO bytecode under jax.export's calling convention.
 
 The artifact reproduces the live jitted pipeline exactly on CPU
-(tests/test_export.py asserts bit-equality); on TPU the artifact and a fresh
-trace are two separate XLA compilations of the same math, which measured
-~8e-6 px of box drift and the odd borderline 0.5-threshold mask pixel on
-this chip — tools/export_model.py --verify checks with tolerances.
+(tests/test_export.py asserts bit-equality); on a GPU the artifact and a
+fresh trace are two separate XLA compilations of the same math, which may
+differ in the last bits of a box and flip the odd borderline 0.5-threshold
+mask pixel — tools/export_model.py --verify checks with tolerances.
 
 Batch dimension is symbolic by default (`jax.export.symbolic_shape("b")`):
 one artifact serves any batch size without recompiling the export. Pass
@@ -27,8 +26,16 @@ File format (single self-contained file):
 
     magic  b"MYTPUEXP"            8 bytes
     header length                 8 bytes little-endian
-    header JSON (utf-8)           model/config metadata, see export_detect
-    payload                       jax.export serialized bytes
+    header JSON (utf-8)           model/config metadata (see export_detect)
+                                  and, under "program", the Exported's
+                                  signature fields
+    payload                       the StableHLO bytecode
+                                  (Exported.mlir_module_serialized)
+
+jax's own `Exported.serialize()` needs the `flatbuffers` package, which a
+GPU serving host need not have; the detect program is single-device and
+effect-free, so its signature fits in the JSON header and the loader
+rebuilds the `jax.export.Exported` from it.
 """
 
 from __future__ import annotations
@@ -43,12 +50,12 @@ import numpy as np
 from . import pipelines
 
 _MAGIC = b"MYTPUEXP"
-_FORMAT_VERSION = 1
+_FORMAT_VERSION = 2
 
 
 def export_detect(net, variables, config, *, batch_size=None,
                   input_dtype="uint8", platforms=None):
-    """Trace + lower the flax (f32/bf16) detect pipeline to an Exported.
+    """Trace + lower the module (f32/bf16) detect pipeline to an Exported.
 
     net/variables/config: as held by MaskYOLO (model.py). The variables are
     closed over, so the weights are embedded in the artifact as constants.
@@ -64,7 +71,7 @@ def export_detect(net, variables, config, *, batch_size=None,
 def export_detect_fn(fn, config, *, batch_size=None, input_dtype="uint8",
                      platforms=None, compute_path="float32"):
     """Trace + lower any jitted images→detect-dict callable to an Exported —
-    shared by the flax path above and the int8 quantized path
+    shared by the module path above and the int8 quantized path
     (quant.QuantizedDetector.detect_fn, whose int8 weights are jit
     constants and therefore bake into the artifact the same way).
 
@@ -73,7 +80,7 @@ def export_detect_fn(fn, config, *, batch_size=None, input_dtype="uint8",
     input_dtype: "uint8" (serving contract; normalized on device) or
     "float32" (caller pre-normalizes to [0, 1]).
     platforms: optional sequence of lowering platforms, e.g.
-    ("tpu", "cpu") for an artifact loadable on either; None = the
+    ("cuda", "cpu") for an artifact loadable on either; None = the
     default platform of this process.
 
     Returns (exported, header_dict).
@@ -112,15 +119,72 @@ def export_detect_fn(fn, config, *, batch_size=None, input_dtype="uint8",
     return exported, header
 
 
+def _aval_json(aval):
+    return {"shape": [d if isinstance(d, int) else str(d) for d in aval.shape],
+            "dtype": np.dtype(aval.dtype).name}
+
+
 def save_exported(exported, header, path):
-    """Serialize an Exported + header to the container format above."""
-    payload = bytes(exported.serialize())
+    """Write an Exported + header to the container format above."""
+    shardings = exported.in_shardings_hlo + exported.out_shardings_hlo
+    if (exported.nr_devices != 1 or exported.ordered_effects
+            or exported.unordered_effects
+            or any(s is not None for s in shardings)):
+        raise ValueError("only single-device, effect-free programs export "
+                         "to this format")
+    outs = jax.tree_util.tree_unflatten(exported.out_tree,
+                                        range(len(exported.out_avals)))
+    header = dict(header, program={
+        "fun_name": exported.fun_name,
+        "in_avals": [_aval_json(a) for a in exported.in_avals],
+        "out_keys": sorted(outs, key=outs.get),
+        "out_avals": [_aval_json(a) for a in exported.out_avals],
+        "platforms": list(exported.platforms),
+        "calling_convention_version": exported.calling_convention_version,
+        "module_kept_var_idx": list(exported.module_kept_var_idx),
+        "uses_global_constants": bool(exported.uses_global_constants),
+    })
     head = json.dumps(header).encode("utf-8")
     with open(path, "wb") as f:
         f.write(_MAGIC)
         f.write(struct.pack("<Q", len(head)))
         f.write(head)
-        f.write(payload)
+        f.write(exported.mlir_module_serialized)
+
+
+def _load_exported(program, payload: bytes):
+    """Rebuild the jax.export.Exported that save_exported wrote."""
+    scope = jax.export.SymbolicScope()
+
+    def aval(a):
+        shape = tuple(d if isinstance(d, int)
+                      else jax.export.symbolic_shape(d, scope=scope)[0]
+                      for d in a["shape"])
+        return jax.core.ShapedArray(shape, np.dtype(a["dtype"]))
+
+    n_in, n_out = len(program["in_avals"]), len(program["out_avals"])
+    return jax.export.Exported(
+        fun_name=program["fun_name"],
+        in_tree=jax.tree_util.tree_structure(((0,) * n_in, {})),
+        in_avals=tuple(aval(a) for a in program["in_avals"]),
+        out_tree=jax.tree_util.tree_structure(
+            dict.fromkeys(program["out_keys"], 0)),
+        out_avals=tuple(aval(a) for a in program["out_avals"]),
+        _has_named_shardings=False,
+        _in_named_shardings=(None,) * n_in,
+        _out_named_shardings=(None,) * n_out,
+        in_shardings_hlo=(None,) * n_in,
+        out_shardings_hlo=(None,) * n_out,
+        nr_devices=1,
+        platforms=tuple(program["platforms"]),
+        ordered_effects=(),
+        unordered_effects=(),
+        disabled_safety_checks=(),
+        mlir_module_serialized=payload,
+        calling_convention_version=program["calling_convention_version"],
+        module_kept_var_idx=tuple(program["module_kept_var_idx"]),
+        uses_global_constants=program["uses_global_constants"],
+        _get_vjp=None)
 
 
 class ExportedDetector:
@@ -150,7 +214,7 @@ class ExportedDetector:
                 raise ValueError(
                     f"{path}: unsupported format_version "
                     f"{header.get('format_version')}")
-            exported = jax.export.deserialize(bytearray(f.read()))
+            exported = _load_exported(header["program"], f.read())
         return cls(exported, header)
 
     def serve_config(self, batch_size=None):

@@ -1,10 +1,10 @@
-"""Shared NN building blocks (flax.linen).
+"""Shared NN building blocks.
 
-TPU-native counterparts of the reference's Keras blocks: `conv_block`
+Counterparts of the reference's Keras blocks: `conv_block`
 (/root/reference/myolo/model.py:42-52) and keras_applications'
 `_depthwise_conv_block` (imported at model.py:19). Parameters are float32;
-compute dtype is configurable (bfloat16 by default for production configs) so
-convolutions hit the MXU at full rate while the optimizer state stays fp32.
+compute dtype is configurable (bfloat16 for production configs) so the
+convolutions run on the tensor cores while the optimizer state stays fp32.
 
 BatchNorm: the reference uses Keras BN with TRAIN_BN=False (config.py:227),
 i.e. frozen statistics. Here BN carries a `batch_stats` collection; `train=True`
@@ -17,8 +17,9 @@ from __future__ import annotations
 
 from typing import Callable
 
-import flax.linen as nn
 import jax.numpy as jnp
+
+from . import nn
 
 
 def relu6(x):
@@ -38,7 +39,6 @@ class ConvBN(nn.Module):
     dtype: jnp.dtype = jnp.float32
     axis_name: str | None = None
 
-    @nn.compact
     def __call__(self, x, train: bool = False):
         x = nn.Conv(
             self.features,
@@ -52,10 +52,7 @@ class ConvBN(nn.Module):
         )(x)
         x = nn.BatchNorm(
             use_running_average=not train,
-            momentum=0.99,
-            epsilon=1e-3,
             dtype=jnp.float32,  # BN stats in f32 (bf16 batch stats corrupt the running averages)
-            param_dtype=jnp.float32,
             axis_name=self.axis_name if train else None,
             name="bn",
         )(x)
@@ -76,7 +73,6 @@ class DepthwiseSeparable(nn.Module):
     dtype: jnp.dtype = jnp.float32
     axis_name: str | None = None
 
-    @nn.compact
     def __call__(self, x, train: bool = False):
         in_ch = x.shape[-1]
         out_ch = int(self.features * self.alpha)
@@ -94,10 +90,7 @@ class DepthwiseSeparable(nn.Module):
         )(x)
         x = nn.BatchNorm(
             use_running_average=not train,
-            momentum=0.99,
-            epsilon=1e-3,
             dtype=jnp.float32,  # BN stats in f32 (bf16 batch stats corrupt the running averages)
-            param_dtype=jnp.float32,
             axis_name=self.axis_name if train else None,
             name="conv_dw_bn",
         )(x)
@@ -114,10 +107,7 @@ class DepthwiseSeparable(nn.Module):
         )(x)
         x = nn.BatchNorm(
             use_running_average=not train,
-            momentum=0.99,
-            epsilon=1e-3,
             dtype=jnp.float32,  # BN stats in f32 (bf16 batch stats corrupt the running averages)
-            param_dtype=jnp.float32,
             axis_name=self.axis_name if train else None,
             name="conv_pw_bn",
         )(x)

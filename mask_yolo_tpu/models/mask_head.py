@@ -2,8 +2,8 @@
 
 Rebuilds build_mask_graph (/root/reference/myolo/model.py:668-715). The
 reference wraps every layer in TimeDistributed to map over the ROI axis; here
-the (batch, roi) axes are folded into one leading dim — on TPU that turns 245
-tiny conv calls into one large batched conv that tiles cleanly onto the MXU.
+the (batch, roi) axes are folded into one leading dim, which turns 245 tiny
+conv calls into one large batched conv.
 
 ROIAlign itself is the separable-matmul crop from ops/roi_align.py (the
 reference's PyramidROIAlign / tf.image.crop_and_resize, model.py:299-413).
@@ -11,9 +11,9 @@ reference's PyramidROIAlign / tf.image.crop_and_resize, model.py:299-413).
 
 from __future__ import annotations
 
-import flax.linen as nn
 import jax.numpy as jnp
 
+from . import nn
 from ..ops.roi_align import crop_and_resize, multilevel_crop_and_resize
 
 
@@ -27,7 +27,6 @@ class MaskHead(nn.Module):
     # path to convert normalized ROI extents to pixels for level assignment
     image_hw: tuple = (224, 224)
 
-    @nn.compact
     def __call__(self, rois, feature_map, train: bool = False):
         """rois: [B, R, 4] normalized (x1,y1,x2,y2); feature_map: [B, h, w, C]
         — or a tuple of FPN pyramid maps (fine→coarse), in which case each

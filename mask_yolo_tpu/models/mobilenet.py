@@ -9,9 +9,9 @@ reference's "added by me" block_id=6 (model.py:77).
 
 from __future__ import annotations
 
-import flax.linen as nn
 import jax.numpy as jnp
 
+from . import nn
 from .layers import ConvBN, DepthwiseSeparable
 
 
@@ -21,7 +21,6 @@ class MobileNetBackbone(nn.Module):
     dtype: jnp.dtype = jnp.float32
     axis_name: str | None = None
 
-    @nn.compact
     def __call__(self, x, train: bool = False):
         a, dm, dt = self.alpha, self.depth_multiplier, self.dtype
         # 224x224x3 -> 112x112x32 stem (reference conv_block, model.py:42-52)

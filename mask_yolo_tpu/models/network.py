@@ -1,4 +1,4 @@
-"""The complete Mask-YOLO network as one flax module.
+"""The complete Mask-YOLO network as one module.
 
 Wires backbone → {feature-map neck, YOLO head} and exposes the mask branch,
 mirroring the graph built by MaskYOLO.build
@@ -16,9 +16,9 @@ ops/ that the pipelines in pipelines.py compose under jit.
 
 from __future__ import annotations
 
-import flax.linen as nn
 import jax.numpy as jnp
 
+from . import nn
 from .mask_head import MaskHead
 from .mobilenet import MobileNetBackbone
 from .resnet_fpn import ResNetFPNBackbone
@@ -35,32 +35,30 @@ class MaskYoloNet(nn.Module):
     axis_name: str | None = None
     image_hw: tuple = (224, 224)
 
-    def setup(self):
-        dt = jnp.bfloat16 if self.compute_dtype == "bfloat16" else jnp.float32
+    def _dtype(self):
+        return jnp.bfloat16 if self.compute_dtype == "bfloat16" else jnp.float32
+
+    def _backbone(self):
         if self.backbone == "mobilenet":
-            self.backbone_net = MobileNetBackbone(dtype=dt, axis_name=self.axis_name,
-                                                  name="backbone")
-        elif self.backbone == "resnet50_fpn":
-            self.backbone_net = ResNetFPNBackbone(
-                pyramid_size=self.top_feature_map_depth, dtype=dt,
-                axis_name=self.axis_name, name="backbone")
-        else:
-            raise ValueError(f"unknown backbone {self.backbone!r}")
-        # neck: reduce depth for the mask branch only (reference model.py:848)
-        self.feature_map_conv = nn.Conv(
-            self.top_feature_map_depth, (3, 3), padding="SAME",
-            dtype=dt, param_dtype=jnp.float32, name="feature_map")
-        self.yolo = YoloHead(self.n_box, self.num_classes, dtype=dt,
-                             axis_name=self.axis_name, name="yolo")
-        self.mask = MaskHead(self.num_classes, self.mask_pool_size, dtype=dt,
-                             axis_name=self.axis_name,
-                             image_hw=tuple(self.image_hw), name="mask")
+            return MobileNetBackbone(dtype=self._dtype(),
+                                     axis_name=self.axis_name, name="backbone")
+        if self.backbone == "resnet50_fpn":
+            return ResNetFPNBackbone(pyramid_size=self.top_feature_map_depth,
+                                     dtype=self._dtype(),
+                                     axis_name=self.axis_name, name="backbone")
+        raise ValueError(f"unknown backbone {self.backbone!r}")
+
+    def _yolo(self):
+        return YoloHead(self.n_box, self.num_classes, dtype=self._dtype(),
+                        axis_name=self.axis_name, name="yolo")
 
     def trunk(self, image, train: bool = False):
         """image [B, H, W, 3] float in [0, 1] → (yolo_grid, mask_feature_map)."""
-        c4 = self.backbone_net(image, train)
-        fmap = self.feature_map_conv(c4)
-        grid = self.yolo(c4, train)
+        c4 = self._backbone()(image, train)
+        # neck: reduce depth for the mask branch only (reference model.py:848)
+        fmap = nn.Conv(self.top_feature_map_depth, (3, 3), padding="SAME",
+                       dtype=self._dtype(), name="feature_map")(c4)
+        grid = self._yolo()(c4, train)
         return grid, fmap
 
     def trunk_pyramid(self, image, train: bool = False):
@@ -69,13 +67,16 @@ class MaskYoloNet(nn.Module):
         backbone='resnet50_fpn'."""
         if self.backbone != "resnet50_fpn":
             raise ValueError("trunk_pyramid requires the resnet50_fpn backbone")
-        c4, pyramid = self.backbone_net(image, train, return_pyramid=True)
-        grid = self.yolo(c4, train)
+        c4, pyramid = self._backbone()(image, train, return_pyramid=True)
+        grid = self._yolo()(c4, train)
         return grid, pyramid
 
     def mask_branch(self, rois, fmap, train: bool = False):
         """rois [B, R, 4] normalized → [B, R, 28, 28, C] sigmoid masks."""
-        return self.mask(rois, fmap, train)
+        return MaskHead(self.num_classes, self.mask_pool_size,
+                        dtype=self._dtype(), axis_name=self.axis_name,
+                        image_hw=tuple(self.image_hw), name="mask")(
+                            rois, fmap, train)
 
     def pick_trunk(self):
         """The trunk the pipelines should use: FPN backbones feed the mask

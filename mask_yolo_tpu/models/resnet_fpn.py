@@ -10,8 +10,9 @@ downstream component (neck, YOLO head, mask branch) is backbone-agnostic.
 
 from __future__ import annotations
 
-import flax.linen as nn
 import jax.numpy as jnp
+
+from . import nn
 
 
 class Bottleneck(nn.Module):
@@ -20,7 +21,6 @@ class Bottleneck(nn.Module):
     dtype: jnp.dtype = jnp.float32
     axis_name: str | None = None
 
-    @nn.compact
     def __call__(self, x, train: bool = False):
         dt = self.dtype
 
@@ -58,7 +58,6 @@ class ResNetFPNBackbone(nn.Module):
     dtype: jnp.dtype = jnp.float32
     axis_name: str | None = None
 
-    @nn.compact
     def __call__(self, x, train: bool = False, return_pyramid: bool = False):
         """return_pyramid: also return the (P3, P4, P5) maps (stride 8/16/32,
         `pyramid_size` channels each) for true multi-level ROIAlign
@@ -106,7 +105,8 @@ class ResNetFPNBackbone(nn.Module):
 
 
 def _upsample2x(x):
-    """Nearest-neighbour 2x upsample — a reshape/broadcast, free on TPU."""
+    """Nearest-neighbour 2x upsample — a reshape/broadcast XLA fuses into
+    the consumer."""
     b, h, w, c = x.shape
     x = jnp.broadcast_to(x[:, :, None, :, None, :], (b, h, 2, w, 2, c))
     return x.reshape(b, h * 2, w * 2, c)

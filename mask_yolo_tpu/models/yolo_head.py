@@ -12,9 +12,9 @@ and optionally frozen as a named parameter subtree.
 
 from __future__ import annotations
 
-import flax.linen as nn
 import jax.numpy as jnp
 
+from . import nn
 from .layers import DepthwiseSeparable
 
 
@@ -26,7 +26,6 @@ class YoloHead(nn.Module):
     dtype: jnp.dtype = jnp.float32
     axis_name: str | None = None
 
-    @nn.compact
     def __call__(self, x, train: bool = False):
         a, dm, dt = self.alpha, self.depth_multiplier, self.dtype
         # 28x28x512 -> 14x14x512 (reference block_id=7, model.py:256)

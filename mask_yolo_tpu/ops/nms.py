@@ -5,7 +5,7 @@ The reference performs all suppression on the host in pure Python:
 per-class greedy NMS over BoundBox objects, and `NMB`
 (myolo_utils.py:88-113) runs a second class-aware pass in `detect()`
 (model.py:1304). Both are O(N²) loops over at most 245 boxes — trivially
-small — so the TPU-native version computes the full IoU matrix once and runs
+small — so the on-device version computes the full IoU matrix once and runs
 a fixed-trip `lax.fori_loop` over the score-sorted order. Everything stays
 on-chip and static-shape; "dropped" boxes are expressed by zeroed scores, not
 by shrinking arrays.

@@ -1,6 +1,6 @@
-"""ROIAlign as separable bilinear interpolation — MXU-friendly.
+"""ROIAlign as separable bilinear interpolation — two dense contractions.
 
-TPU-native replacement for the reference's PyramidROIAlign, which wraps
+Replacement for the reference's PyramidROIAlign, which wraps
 `tf.image.crop_and_resize` (/root/reference/myolo/model.py:299-413). Instead of
 per-box gather loops, the bilinear crop is expressed as two small matrix
 multiplies per ROI:
@@ -11,8 +11,8 @@ where Wy[r] is [pool_h, H] and Wx[r] is [pool_w, W] interpolation matrices
 whose rows are the bilinear "tent" weights of each output sample point. Rows
 whose sample coordinate falls outside [0, dim-1] are all-zero, reproducing
 crop_and_resize's extrapolation_value=0. Batched over (batch, roi) with
-einsum, the whole op is two dense contractions the MXU eats directly — no
-dynamic shapes, no gathers, fully differentiable w.r.t. the feature map.
+einsum, the whole op is two dense contractions — no dynamic shapes, no
+gathers, fully differentiable w.r.t. the feature map.
 
 Numerical semantics match tf.image.crop_and_resize (bilinear):
   sample_y(i) = y1*(H-1) + i * (y2-y1)*(H-1)/(pool_h-1)   for pool_h > 1
@@ -66,10 +66,10 @@ def crop_and_resize(feature, boxes, crop_size, dtype=None, precision=None):
     does (PyramidROIAlign clamps roi_level to 0, model.py:353-354).
 
     precision: None → HIGHEST (f32 accumulation; bit-parity with the
-    reference crop). The int8 detect pipeline passes DEFAULT: with bf16
-    crops, HIGHEST forces multi-pass f32 MXU arithmetic AND f32
-    intermediates — the r4 stage profile measured the crop at ~2× its pure
-    bf16 traffic estimate, and its output feeds quantized convs anyway.
+    reference crop). The int8 detect pipeline may pass DEFAULT
+    (QUANT_FAST_CROP): with bf16 crops, HIGHEST forces multi-pass f32
+    arithmetic AND f32 intermediates, and the crop's output feeds
+    quantized convs anyway.
     """
     ph, pw = crop_size
     b, h, w, c = feature.shape
@@ -80,7 +80,7 @@ def crop_and_resize(feature, boxes, crop_size, dtype=None, precision=None):
     wy = interp_matrix(y1, y2, h, ph, dtype)  # [B, R, ph, H]
     wx = interp_matrix(x1, x2, w, pw, dtype)  # [B, R, pw, W]
     feat = feature.astype(dtype)
-    # two MXU contractions; XLA fuses the transpose/reshapes. These
+    # two contractions; XLA fuses the transpose/reshapes. These
     # contractions are tiny (K = H or W), so f32 accumulation costs no
     # FLOPs-bound time — only the intermediates' dtype matters (see above).
     prec = jax.lax.Precision.HIGHEST if precision is None else precision
@@ -128,7 +128,7 @@ def multilevel_crop_and_resize(features, boxes, crop_size,
     pyramid FPN's k0=4 is P4 = index 1 (the default); callers with a
     different pyramid must pass the k0 index explicitly.
 
-    TPU-static implementation: crop from EVERY level (the [B, R, ph, pw, C]
+    Static-shape implementation: crop from EVERY level (the [B, R, ph, pw, C]
     crops are tiny) and one-hot combine — no data-dependent gathers, fully
     differentiable w.r.t. every feature map. Returns [B, R, ph, pw, C].
     """
@@ -163,10 +163,9 @@ def paste_masks(masks, boxes, image_size, dtype=jnp.float32):
     dtype: contraction dtype. The weight COORDINATES are always computed in
     f32 (precision-sensitive); only the contractions run in `dtype`.
     float32 contracts at Precision.HIGHEST for bit-parity with the host
-    oracle; bfloat16 runs at default MXU precision — at the 416²/K=100
-    operating point that is 221 → 40 µs/img (docs/PERFORMANCE.md), and the
-    only observable difference is sub-ULP wobble of borderline 0.5-threshold
-    pixels on mask edges.
+    oracle; bfloat16 runs at default precision, and the only observable
+    difference is sub-ULP wobble of borderline 0.5-threshold pixels on mask
+    edges.
     """
     r, mh, mw = masks.shape
     h, w = image_size

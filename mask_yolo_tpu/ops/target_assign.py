@@ -1,6 +1,6 @@
 """Mask-branch training-target assignment, fixed shape.
 
-TPU-native replacement for DetectMaskTargetLayer / detect_mask_target_graph
+Replacement for DetectMaskTargetLayer / detect_mask_target_graph
 (/root/reference/myolo/model.py:420-661). The reference builds ragged arrays
 with tf.where / boolean_mask / dynamic tf.pad and loops per batch element via
 batch_slice; XLA needs static shapes, so here every quantity is computed for
@@ -22,7 +22,7 @@ and the downstream mask head applies per-ROI independently while the mask
 loss only gathers ROIs with class > 0, so the permutation has no effect on
 any loss value. We keep the original proposal order and skip the sort.
 
-The per-ROI GT-mask gather is expressed as a one-hot matmul (MXU) instead of
+The per-ROI GT-mask gather is expressed as a one-hot matmul instead of
 a gather, and the crop is the separable-matmul crop from ops/roi_align.py.
 """
 
@@ -69,7 +69,7 @@ def assign_mask_targets_single(proposals, gt_class_ids, gt_boxes, gt_masks,
 
     target_class = jnp.where(positive, gt_class_ids[best_gt], 0).astype(jnp.int32)
 
-    # one-hot gather of each ROI's GT mask: [R, G] @ [G, H*W] on the MXU
+    # one-hot gather of each ROI's GT mask: [R, G] @ [G, H*W] as a matmul
     onehot = jax.nn.one_hot(best_gt, g, dtype=jnp.float32) * positive[:, None]
     h, w = gt_masks.shape[0], gt_masks.shape[1]
     masks_flat = gt_masks.astype(jnp.float32).reshape(h * w, g).T  # [G, H*W]
@@ -98,8 +98,8 @@ def assign_mask_targets_single(proposals, gt_class_ids, gt_boxes, gt_masks,
 @functools.partial(jax.jit, static_argnums=(4, 5))
 def assign_mask_targets(proposals, gt_class_ids, gt_boxes, gt_masks, mask_shape,
                         mini: bool = False):
-    """Batched assignment (vmap over the batch axis — the TPU-native
-    replacement for the reference's batch_slice Python loop, model.py:644).
+    """Batched assignment (vmap over the batch axis — the replacement for
+    the reference's batch_slice Python loop, model.py:644).
 
     proposals: [B, R, 4]; gt_class_ids: [B, G]; gt_boxes: [B, G, 4]
     normalized; gt_masks: [B, H, W, G] (or [B, mh, mw, G] mini-masks).

@@ -1,22 +1,21 @@
-"""Multi-host (pod-scale) initialization and data placement.
+"""Multi-host initialization and data placement.
 
 The reference is strictly single-process/single-device
 (/root/reference/myolo/config.py:47 GPU_COUNT=0; SURVEY.md §2.3 records the
-absence of any distributed backend). The TPU-native scale-out recipe this
-module provides (SURVEY §2.3 plan row: "DCN inter-slice via
-`jax.distributed`"):
+absence of any distributed backend). The scale-out recipe this module
+provides (SURVEY §2.3, `jax.distributed`):
 
  1. every host process calls `initialize()` (env-driven, no-op when
-    single-process) — on TPU pods JAX auto-detects the topology, on CPU test
-    rigs the coordinator/num_processes/process_id triplet comes from env;
+    single-process) — the coordinator/num_processes/process_id triplet
+    comes from the arguments or the env;
  2. all processes build the SAME global mesh over `jax.devices()` (which,
     after initialize, is the GLOBAL device list);
  3. each process loads only its slice of the data (`local_image_ids`) and
     assembles the global batch with `jax.make_array_from_process_local_data`
     (`global_batch_from_local` / mesh.shard_batch route through it
     automatically when process_count > 1);
- 4. the jitted train step is unchanged: XLA inserts gradient psums over ICI
-    within a slice and DCN across slices.
+ 4. the jitted train step is unchanged: XLA inserts the gradient psums
+    across every device of every process.
 
 Checkpointing: params/opt-state are replicated over 'data', so every process
 holds full copies; write from process 0 only (`is_chief`).
@@ -42,8 +41,9 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
     jax.distributed.initialize triplet); with none set and no cluster
     environment, this is a single-process no-op.
 
-    On real TPU pods, call with no arguments: JAX's cluster detection fills
-    the triplet from the TPU metadata. Returns (process_index, process_count).
+    Nothing detects a GPU cluster by itself: pass the triplet (e.g.
+    coordinator_address="localhost:<port>" for the processes of one host)
+    or set it in the env. Returns (process_index, process_count).
     """
     coordinator_address = coordinator_address or os.environ.get(
         f"{_ENV_PREFIX}_COORDINATOR")
@@ -64,7 +64,7 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
             process_id=process_id,
             local_device_ids=local_device_ids)
     elif not already and os.environ.get("JAX_COORDINATOR_ADDRESS"):
-        # standard JAX env triplet / TPU-pod auto-detection
+        # the standard JAX env triplet
         jax.distributed.initialize()
     return jax.process_index(), jax.process_count()
 

@@ -1,7 +1,7 @@
 """Sharded batched inference over a device mesh.
 
 Completes the BASELINE.md scale-out row — "batched 80-class COCO-style
-inference at 416² with on-device NMS + mask unmold" on a pod — for the
+inference at 416² with on-device NMS + mask unmold" over many devices — for the
 *inference* direction (train/trainer.py covers training). The reference has
 no batched inference at all: `detect` runs one image through Keras predict
 and post-processes on host (/root/reference/myolo/model.py:1238-1328).

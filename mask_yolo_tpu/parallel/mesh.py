@@ -2,10 +2,11 @@
 
 The reference is strictly single-process/single-device (GPU_COUNT=0,
 /root/reference/myolo/config.py:47; SURVEY.md §2.3 documents the absence of
-any parallelism or collectives). The TPU-native replacement is the standard
-JAX recipe: build a `Mesh` over the available chips, annotate array shardings
+any parallelism or collectives). The replacement is the standard JAX
+recipe: build a `Mesh` over the available devices, annotate array shardings
 with `NamedSharding`, and let XLA insert the collectives (psum for gradient
-reduction under `jit`) over ICI.
+reduction under `jit`). The GPUs of one host are joined all to all, so the
+mesh shape follows the algorithm (data × model), not a wiring topology.
 
 Axes:
   'data'  — batch dimension (pure DP; gradients all-reduced by XLA)

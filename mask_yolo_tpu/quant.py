@@ -2,8 +2,9 @@
 
 New capability vs the reference (which is float32 Keras end to end): the
 convolution stack — backbone, neck, YOLO head and mask head — runs with int8
-operands on the MXU, which this chip executes ~4.5× faster than bfloat16
-(measured 1.13 POP/s int8 vs 0.25 PFLOP/s bf16 on the neck-shaped 3×3 conv).
+operands and int32 accumulation. XLA:GPU refuses every integer
+`conv_general_dilated`, so the int8 convs are written as int8 GEMMs and
+shifted multiply-adds (ops/int8_conv.py), exact to the last bit.
 
 Scheme (standard PTQ):
   * BatchNorm is folded into the preceding conv's kernel + bias
@@ -15,13 +16,13 @@ Scheme (standard PTQ):
     bias + activation applied, then re-quantized at the next conv.
   * The pointwise/3×3 convs carrying ~90% of the FLOPs run int8. The mask
     deconv is reformulated as an exactly equivalent 1×1 conv to 4x channels
-    + depth-to-space so it hits the MXU densely (int8) instead of lowering
-    as a 4x-wasteful dilated conv. Depthwise convs and the final sigmoid
-    mask conv stay bf16 (quantized DW measured slower end-to-end).
+    + depth-to-space, a dense int8 GEMM instead of a dilated conv that
+    wastes 4× the FLOPs. The final sigmoid mask conv stays bf16; depthwise
+    convs and the stem follow Config.QUANT_DW_INT8 / QUANT_STEM_BF16.
 
 The layer graph below mirrors models/{mobilenet,yolo_head,network,mask_head}
 exactly (same names, same strides); `test_quant.py` asserts the folded f32
-graph reproduces the flax forward bit-closely so the two cannot drift.
+graph reproduces the module forward bit-closely so the two cannot drift.
 
 Reference anchor: the conv stack being quantized is the reference's
 mobilenet_graph + yolo_branch_graph + feature_map + build_mask_graph
@@ -38,6 +39,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from .models.layers import relu6
+from .ops.int8_conv import conv_int8
 from .ops.roi_align import crop_and_resize
 
 
@@ -84,7 +86,7 @@ class Layer:
     # dequant factor is w_scale alone
     act_folded: bool = False
     # per-output-channel bias correction applied on the int8 path only
-    # (QUANT_BIAS_CORRECT; f32/bf16 parity paths keep the exact flax bias)
+    # (QUANT_BIAS_CORRECT; f32/bf16 parity paths keep the exact module bias)
     bias_corr: Any = None
 
 
@@ -98,12 +100,8 @@ def _scale_ok(s) -> bool:
 def _ds_block(params, stats, name, strides, dw_int8: bool = False):
     """DepthwiseSeparable block → [dw layer, pw layer (int8)].
 
-    dw_int8: quantize the depthwise conv too. Spatial-size dependent:
-    at 224² int8 DW measured SLOWER end-to-end (8.8k vs 12.4k img/s —
-    grouped int8 lowers poorly at small spatials), but at 416² it is a
-    15% backbone win (131 → 111 µs/img) — the bigger maps amortize the
-    lowering overhead. Config.QUANT_DW_INT8 selects (auto: on for
-    inputs ≥ 320²)."""
+    dw_int8: quantize the depthwise conv too. Config.QUANT_DW_INT8 selects
+    (auto: on for inputs ≥ 320²)."""
     p, s = params[name], stats[name]
     dwk, dwb = fold_conv_bn(p["conv_dw"]["kernel"], p["conv_dw_bn"], s["conv_dw_bn"])
     pwk, pwb = fold_conv_bn(p["conv_pw"]["kernel"], p["conv_pw_bn"], s["conv_pw_bn"])
@@ -117,13 +115,13 @@ def _ds_block(params, stats, name, strides, dw_int8: bool = False):
 
 
 def build_layer_graph(variables, config):
-    """Extract the folded inference layer graph from flax variables.
+    """Extract the folded inference layer graph from the module variables.
 
     Returns dict with 'trunk' (stem+backbone), 'neck', 'yolo', 'mask' layer
     lists. Fully-quantized trunks are mobilenet-only; for other backbones
     (resnet50_fpn) 'trunk'/'neck'/'yolo' are None and only the mask head —
     the K-linear dominant branch — is extracted (hybrid mode: the caller
-    runs the trunk in bf16 flax and the mask head int8).
+    runs the trunk through the bf16 module and the mask head int8).
     """
     params = variables["params"]
     stats = variables.get("batch_stats", {})
@@ -134,12 +132,12 @@ def build_layer_graph(variables, config):
                                      f32_layers=mask_f32)}
 
     dw_int8 = getattr(config, "QUANT_DW_INT8", None)
-    if dw_int8 is None:  # auto: big spatials amortize grouped-int8 lowering
+    if dw_int8 is None:  # auto: int8 depthwise from 320² up
         dw_int8 = int(config.IMAGE_SHAPE[0]) >= 320
     dw_int8 = bool(dw_int8)
 
     stem_bf16 = getattr(config, "QUANT_STEM_BF16", None)
-    if stem_bf16 is None:  # auto: narrow-K stem feeds the MXU better in bf16
+    if stem_bf16 is None:  # auto: bf16 stem from 320² up
         stem_bf16 = int(config.IMAGE_SHAPE[0]) >= 320
     stem_bf16 = bool(stem_bf16)
 
@@ -193,13 +191,13 @@ def _mask_layers(m_p, m_s, f32_layers=()):
                           quantize=f"mask_conv{i}" not in f32_layers))
     # 2×2/s2 ConvTranspose == 1×1 conv to (2·2·O) channels + depth-to-space:
     # y[2i+di, 2j+dj, o] = Σ_c x[i,j,c] · W[di,dj,c,o]. The deconv therefore
-    # runs as a dense int8 1×1 conv on the MXU with zero padding waste
+    # runs as a dense int8 1×1 conv with zero padding waste
     # (conv_transpose lowers as a dilated conv that wastes 4× the FLOPs).
-    # The depth-to-space itself is NOT applied here — a layout transpose of
-    # the [N,14,14,4·256] tensor measured ~30 µs/img — instead the following
-    # 1×1 class conv is expanded block-diagonally to consume the (di,dj,o)
-    # layout directly, and depth-to-space runs after it on the tiny
-    # per-class tensor (256/num_classes× smaller).
+    # The depth-to-space itself is NOT applied here: the following 1×1
+    # class conv is expanded block-diagonally to consume the (di,dj,o)
+    # layout directly, and depth-to-space runs after it on the small
+    # per-class tensor (256/num_classes× smaller) instead of on the
+    # [N,14,14,4·256] one.
     dk = np.asarray(m_p["mask_deconv"]["kernel"], np.float32)  # [2, 2, C, O]
     kh, kw, ci, co = dk.shape
     dk_1x1 = dk.transpose(2, 0, 1, 3).reshape(1, 1, ci, kh * kw * co)
@@ -241,7 +239,7 @@ def _conv(x, kernel, strides, groups=1):
 
 
 def _deconv(x, kernel, strides):
-    # flax ConvTranspose semantics: conv_transpose with HWIO kernel
+    # nn.ConvTranspose semantics: conv_transpose with HWIO kernel
     return jax.lax.conv_transpose(
         x, kernel, strides, "SAME",
         dimension_numbers=("NHWC", "HWIO", "NHWC"),
@@ -266,7 +264,7 @@ def run_layer_f32(layer: Layer, x, collect=None, calib_pct: float = 100.0):
     calib_pct: activation-range statistic. 100 = absmax (the default);
     < 100 = that percentile of |x|, clipping rare outliers. Measured at the
     81-class point: clipping HURTS (99.9% halves AP — the extreme
-    activations are signal, not noise; docs/PERFORMANCE.md), so absmax
+    activations are signal, not noise; docs/QUALITY.md), so absmax
     stays the default; the knob is kept for datasets where it wins."""
     if collect is not None:
         ax = jnp.abs(x)
@@ -302,8 +300,9 @@ def run_layer_int8(layer: Layer, x, x_scale=None, out_scale=None):
     x: int8 tensor with scale `x_scale`, or f32 tensor (x_scale=None).
     out_scale: if set, the output is re-quantized to int8 at this scale
     (the next layer's calibrated input scale) so inter-layer tensors stay
-    int8 in HBM — 4× less activation traffic than f32 intermediates, with
-    the epilogue math (dequant→bias→act→requant) fused into the conv by XLA.
+    int8 in device memory — 4× less activation traffic than f32
+    intermediates, with the epilogue math (dequant→bias→act→requant) left
+    to XLA to fuse into the GEMM.
     Returns (y, y_scale): int8+scale if out_scale, else f32+None.
     """
     if layer.quantize and layer.w_q is not None and _scale_ok(layer.a_scale):
@@ -316,18 +315,16 @@ def run_layer_int8(layer: Layer, x, x_scale=None, out_scale=None):
         # so the fold is valid for both entry paths
         s_in = 1.0 if layer.act_folded else (
             layer.a_scale if x_scale is None else x_scale)
-        y = jax.lax.conv_general_dilated(
-            x_q, jnp.asarray(layer.w_q), layer.strides, "SAME",
-            dimension_numbers=("NHWC", "HWIO", "NHWC"),
-            feature_group_count=layer.groups,
-            preferred_element_type=jnp.int32)
+        y = conv_int8(x_q, jnp.asarray(layer.w_q), layer.strides,
+                      layer.groups)
         bias = jnp.asarray(layer.bias)
         if layer.bias_corr is not None:
             bias = bias + jnp.asarray(layer.bias_corr)
         y = y.astype(jnp.float32) * (jnp.asarray(layer.w_scale)
                                      * jnp.float32(s_in)) + bias
     else:
-        # bf16 compute (depthwise / deconv / final sigmoid conv)
+        # bf16 compute (layers not quantized: final sigmoid conv, and the
+        # depthwise convs / stem where the config keeps them in bf16)
         xb = (x.astype(jnp.float32)
               * jnp.asarray(np.asarray(x_scale, np.float32))
               if x_scale is not None else x).astype(jnp.bfloat16)
@@ -345,21 +342,7 @@ def run_layer_int8(layer: Layer, x, x_scale=None, out_scale=None):
     return y, None
 
 
-def _fusable_ds_pair(layer, nxt, x_scale):
-    """Can (layer, nxt) run as one fused Pallas DS block? Requires: int8
-    input already at the dw scale, stride-1 int8 depthwise, int8 pointwise,
-    relu6 activations (ops/pallas_ds.py)."""
-    return (layer.kind == "dw" and layer.strides == (1, 1)
-            and layer.quantize and layer.w_q is not None
-            and layer.act == "relu6" and x_scale is not None
-            and not isinstance(x_scale, np.ndarray)
-            and nxt is not None and nxt.kind == "conv"
-            and nxt.w_q is not None and isinstance(nxt.a_scale, float)
-            and nxt.a_scale > 0.0 and nxt.act == "relu6")
-
-
-def run_layers(layers, x, quant: bool, collect=None, fused_ds: bool = False,
-               interpret: bool = False, calib_pct: float = 100.0,
+def run_layers(layers, x, quant: bool, collect=None, calib_pct: float = 100.0,
                x_scale=None, out_scale=None):
     """x_scale: scale of an already-int8 input `x` (a producer segment
     quantized it — the C4 hand-off below); out_scale: requantize the final
@@ -375,32 +358,10 @@ def run_layers(layers, x, quant: bool, collect=None, fused_ds: bool = False,
     while i < len(layers):
         layer = layers[i]
         nxt = layers[i + 1] if i + 1 < len(layers) else None
-        if fused_ds and _fusable_ds_pair(layer, nxt, scale):
-            # fused DW+PW Pallas block: the depthwise intermediate never
-            # touches HBM (ops/pallas_ds.py)
-            from .ops.pallas_ds import fused_ds_block, pack_ds_pair
-
-            packed = getattr(layer, "_ds_pack", None)
-            if packed is None or packed[0] != scale:
-                packed = (scale, pack_ds_pair(layer, nxt, scale))
-                layer._ds_pack = packed
-            kdw, dwsb, wpw, pwsb = packed[1]
-            nxt2 = layers[i + 2] if i + 2 < len(layers) else None
-            # NB: do NOT name this `out_scale` — that is the function
-            # parameter controlling the final-output requantize epilogue
-            ds_out = (nxt2.a_scale if nxt2 is not None
-                      and isinstance(nxt2.a_scale, float)
-                      and nxt2.a_scale > 0.0 else 0.0)
-            x = fused_ds_block(x, jnp.asarray(kdw), jnp.asarray(dwsb),
-                               jnp.asarray(wpw), jnp.asarray(pwsb),
-                               a_pw=float(nxt.a_scale),
-                               s_out=float(ds_out), interpret=interpret)
-            scale = ds_out if ds_out else None
-            i += 2
-            continue
-        # inter-layer tensors stay int8 in HBM whenever the next layer has a
-        # calibrated input scale — even between bf16 layers, int8 storage is
-        # the 4× activation-traffic cut (the bf16 layer dequantizes on load)
+        # inter-layer tensors stay int8 in device memory whenever the next
+        # layer has a calibrated input scale — even between bf16 layers,
+        # int8 storage is the 4× activation-traffic cut (the bf16 layer
+        # dequantizes on load)
         nxt_scale = (nxt.a_scale if nxt is not None and _scale_ok(nxt.a_scale)
                      else None)
         x, scale = run_layer_int8(layer, x, scale, nxt_scale)
@@ -425,13 +386,11 @@ def run_layers(layers, x, quant: bool, collect=None, fused_ds: bool = False,
 
 
 def _trunk_outputs(graph, images, quant: bool, collect=None,
-                   fused_ds: bool = False, interpret: bool = False,
                    calib_pct: float = 100.0):
-    # int8 C4 hand-off (r4 per-layer roofline finding): the trunk output is
-    # a 5.5 MB/img f32 tensor at 416² that the f32 hand-off writes once and
-    # reads twice (neck + yolo each re-quantize it) — ~16 µs/img of pure
-    # HBM traffic. The neck's and yolo's input scales are calibrated on the
-    # SAME tensor, so when they agree the trunk requantizes C4 once and
+    # int8 C4 hand-off: the trunk output is a 5.5 MB/img f32 tensor at 416²
+    # that an f32 hand-off writes once and reads twice (neck + yolo each
+    # re-quantize it). The neck's and yolo's input scales are calibrated on
+    # the SAME tensor, so when they agree the trunk requantizes C4 once and
     # both consumers read int8 (4× less traffic; value-identical up to
     # FMA-reassociation rounding flips on requantize boundaries).
     shared = None
@@ -451,12 +410,10 @@ def _trunk_outputs(graph, images, quant: bool, collect=None,
                 and na.act_folded == ya.act_folded):
             shared = na.a_scale
     c4 = run_layers(graph["trunk"], images, quant, collect,
-                    fused_ds=fused_ds, interpret=interpret,
                     calib_pct=calib_pct, out_scale=shared)
     fmap = run_layers(graph["neck"], c4, quant, collect,
                       calib_pct=calib_pct, x_scale=shared)
     raw = run_layers(graph["yolo"], c4, quant, collect,
-                     fused_ds=fused_ds, interpret=interpret,
                      calib_pct=calib_pct, x_scale=shared)
     return raw, fmap
 
@@ -464,20 +421,19 @@ def _trunk_outputs(graph, images, quant: bool, collect=None,
 def _mask_outputs(graph, rois, fmap, pool_size: int, num_classes: int,
                   quant: bool, collect=None, image_hw=(224, 224),
                   calib_pct: float = 100.0, classes=None,
-                  fast_crop: bool = False, pallas_crop: bool = False):
+                  fast_crop: bool = False):
     """classes: optional [B, R] int32 — fold the per-ROI class selection
     INTO the final 1×1 mask conv (gather each ROI's 256→1 filter column)
     and return already-selected [B, R, 2p, 2p] masks instead of the full
     [B, R, 2p, 2p, num_classes] tensor. Same products, same 256-term
     accumulation per output — but the class conv writes (and the select
-    einsum re-reads) num_classes× less: the r4 stage profile priced the
-    one-hot select at 40 µs/img of pure HBM traffic at 416²/81-class.
+    einsum re-reads) num_classes× less.
 
-    fast_crop: crop with default (bf16) MXU precision instead of HIGHEST —
+    fast_crop: crop with default matmul precision instead of HIGHEST —
     quant-path only (see ops/roi_align.crop_and_resize)."""
     b, r = rois.shape[:2]
     # quant path crops in bf16: halves the [B,K,14,28,C] contraction
-    # intermediates' HBM traffic; calibration/parity path stays f32
+    # intermediates' memory traffic; calibration/parity path stays f32
     dt = jnp.bfloat16 if quant else jnp.float32
     prec = (jax.lax.Precision.DEFAULT if (fast_crop and quant) else None)
     if isinstance(fmap, (tuple, list)):
@@ -488,11 +444,6 @@ def _mask_outputs(graph, rois, fmap, pool_size: int, num_classes: int,
                                        (pool_size, pool_size),
                                        image_hw=tuple(image_hw),
                                        canonical_level=1).astype(dt)
-    elif pallas_crop and quant and collect is None:
-        # fused-VMEM crop (ops/pallas_crop.py) — Config.QUANT_PALLAS_CROP
-        from .ops.pallas_crop import crop_rois
-
-        x = crop_rois(fmap, rois, pool=pool_size)
     else:
         x = crop_and_resize(fmap, rois, (pool_size, pool_size), dtype=dt,
                             precision=prec)
@@ -502,7 +453,7 @@ def _mask_outputs(graph, rois, fmap, pool_size: int, num_classes: int,
     if classes is not None:
         last = graph["mask"][-1]
         assert last.kind == "out_d2s" and collect is None
-        # keep the deconv→class-conv tensor int8 in HBM exactly like the
+        # keep the deconv→class-conv tensor int8 in memory exactly like the
         # full path does (run_layers' out_scale chaining)
         ms = last.a_scale if quant and _scale_ok(last.a_scale) else None
         x = run_layers(graph["mask"][:-1], x, quant, calib_pct=calib_pct,
@@ -544,11 +495,11 @@ def _selected_out_d2s(layer: Layer, x, classes, num_classes: int,
     return _depth_to_space2(y)[..., 0]
 
 
-def calibrate(graph, config, images, rois=None, flax_trunk=None):
+def calibrate(graph, config, images, rois=None, float_trunk=None):
     """One f32 forward over calibration images; sets each layer's a_scale.
 
     images: [N, H, W, 3] float in [0, 1]. rois: [N, R, 4] normalized boxes for
-    the mask branch (defaults to a few spread boxes). flax_trunk: hybrid-mode
+    the mask branch (defaults to a few spread boxes). float_trunk: hybrid-mode
     callable images -> (grid, fmap/pyramid) supplying the feature maps when
     the graph has no quantized trunk."""
     if rois is None:
@@ -569,8 +520,8 @@ def calibrate(graph, config, images, rois=None, flax_trunk=None):
             raw, fmap = _trunk_outputs(graph, images, quant=False,
                                        collect=collect, calib_pct=pct)
         else:
-            # hybrid mode: the flax trunk supplies the feature map(s)
-            fmap = flax_trunk(images)[1]
+            # hybrid mode: the module trunk supplies the feature map(s)
+            fmap = float_trunk(images)[1]
         _mask_outputs(graph, rois, fmap, config.MASK_POOL_SIZE,
                       config.NUM_CLASSES, quant=False, collect=collect,
                       image_hw=hw, calib_pct=pct)
@@ -660,7 +611,7 @@ def _quantize_layer_kernel(layer, k):
     layer.w_scale = scale
 
 
-def bias_correct(graph, config, images, rois=None, flax_trunk=None):
+def bias_correct(graph, config, images, rois=None, float_trunk=None):
     """Per-output-channel bias correction (Nagel et al. 2019, §5 of
     "Data-Free Quantization Through Weight Equalization and Bias
     Correction"). Must run AFTER quantize_weights.
@@ -670,7 +621,7 @@ def bias_correct(graph, config, images, rois=None, flax_trunk=None):
     over the calibration batch, with x taken from the exact f32 forward
     (errors are corrected layer-by-layer, not compounded). The per-channel
     mean lands in layer.bias_corr, which run_layer_int8 adds on the int8
-    path only — run_layer_f32 keeps bit parity with the flax forward.
+    path only — run_layer_f32 keeps bit parity with the module forward.
     """
     if rois is None:
         base = np.asarray([[0.0, 0.0, 1.0, 1.0], [0.1, 0.1, 0.6, 0.6],
@@ -686,11 +637,8 @@ def bias_correct(graph, config, images, rois=None, flax_trunk=None):
                             layer.groups)
                 x_q = _quantize_act(x, layer.a_scale)
                 s_in = 1.0 if layer.act_folded else layer.a_scale
-                y_q = jax.lax.conv_general_dilated(
-                    x_q, jnp.asarray(layer.w_q), layer.strides, "SAME",
-                    dimension_numbers=("NHWC", "HWIO", "NHWC"),
-                    feature_group_count=layer.groups,
-                    preferred_element_type=jnp.int32)
+                y_q = conv_int8(x_q, jnp.asarray(layer.w_q), layer.strides,
+                                layer.groups)
                 y_q = y_q.astype(jnp.float32) * (jnp.asarray(layer.w_scale)
                                                  * jnp.float32(s_in))
                 delta = jnp.mean((y_f - y_q).astype(jnp.float32),
@@ -706,7 +654,7 @@ def bias_correct(graph, config, images, rois=None, flax_trunk=None):
         fmap = correct_chain(graph["neck"], c4)
         correct_chain(graph["yolo"], c4)
     else:
-        fmap = flax_trunk(images)[1]
+        fmap = float_trunk(images)[1]
 
     pool = config.MASK_POOL_SIZE
     rois = jnp.asarray(rois)
@@ -786,43 +734,42 @@ class QuantizedDetector:
     pipelines.detect_outputs (decode/NMS/top-K/paste stay f32 on-chip).
 
     Backbones other than mobilenet run in HYBRID mode: the trunk stays the
-    flax forward (bf16 for bf16 configs) and only the mask head — the branch
+    module forward (bf16 for bf16 configs) and only the mask head — the branch
     whose cost is linear in the kept-detection count — runs int8. A fully
     quantized residual/FPN trunk would need a graph (not chain) executor;
     hybrid mode removes the previous hard NotImplementedError while keeping
     the accuracy-lossless int8 contract for the quantized part."""
 
-    def __init__(self, graph, config, flax_trunk=None):
+    def __init__(self, graph, config, float_trunk=None):
         self.graph = graph
         self.config = config
-        self._flax_trunk = flax_trunk
+        self._float_trunk = float_trunk
         self._detect = None
-        self._detect_is_pallas = None
         self._detect_sharded = None
         self._infer_yolo = None
 
     @classmethod
     def from_variables(cls, variables, config, calib_images, net=None):
         """net: the MaskYoloNet — required for non-mobilenet (hybrid)
-        backbones, whose trunk keeps running through flax."""
+        backbones, whose trunk keeps running through the module."""
         graph = build_layer_graph(variables, config)
-        flax_trunk = None
+        float_trunk = None
         if graph["trunk"] is None:
             if net is None:
                 raise ValueError(
                     f"BACKBONE={config.BACKBONE!r} quantizes in hybrid mode: "
-                    "pass net= so the trunk can run through flax")
+                    "pass net= so the trunk can run through the module")
             from . import pipelines
 
-            def flax_trunk(images):
+            def float_trunk(images):
                 return net.apply(variables, pipelines.images_f32(images),
                                  train=False, method=net.pick_trunk())
-        graph = calibrate(graph, config, calib_images, flax_trunk=flax_trunk)
+        graph = calibrate(graph, config, calib_images, float_trunk=float_trunk)
         graph = quantize_weights(graph)
         if bool(getattr(config, "QUANT_BIAS_CORRECT", False)):
             graph = bias_correct(graph, config, calib_images,
-                                 flax_trunk=flax_trunk)
-        return cls(graph, config, flax_trunk=flax_trunk)
+                                 float_trunk=float_trunk)
+        return cls(graph, config, float_trunk=float_trunk)
 
     def finetune(self, images, rois=None, steps: int = 200, lr: float = 1e-5,
                  seed: int = 0):
@@ -832,12 +779,11 @@ class QuantizedDetector:
         matches the f32 teacher's outputs (raw grid, feature map, mask
         probabilities) on `images`, using straight-through fake-quant —
         the int8 rounding is inside the training loss, so the optimizer
-        moves weights to quantization-friendly points (the remaining
-        candidate docs/PERFORMANCE.md named after per-channel scales).
+        moves weights to quantization-friendly points.
 
         Results are written ONLY into the int8 deployment graph: tuned
         kernels re-quantize into w_q/w_scale and tuned biases land in
-        bias_corr. run_layer_f32 / trunk(quant=False) keep the exact flax
+        bias_corr. run_layer_f32 / trunk(quant=False) keep the exact module
         weights, so parity oracles and re-calibration are unaffected.
 
         Returns {"loss_initial", "loss_final"} (normalized MSE vs teacher).
@@ -874,7 +820,7 @@ class QuantizedDetector:
             if graph["trunk"] is not None:
                 raw_t, fmap_t = _trunk_outputs(graph, images, quant=False)
             else:
-                raw_t, fmap_t = None, self._flax_trunk(images)[1]
+                raw_t, fmap_t = None, self._float_trunk(images)[1]
             mask_t = run_layers(graph["mask"], crop(fmap_t), quant=False)
             return raw_t, fmap_t, mask_t
 
@@ -898,9 +844,9 @@ class QuantizedDetector:
             return jnp.mean((x - t) ** 2) / (jnp.mean(t ** 2) + 1e-8)
 
         # QUANT_QAT_MASK_WEIGHT: up-weight the mask-probability term of the
-        # distillation objective. The r3 81-class int8 residual lives in the
-        # mask branch (−0.009 mask AP50 vs −0.006 box); the joint equal-
-        # weight objective lets grid/fmap error trade against it.
+        # distillation objective. The 81-class int8 residual lives in the
+        # mask branch (−0.009 mask AP50 vs −0.006 box, docs/QUALITY.md); the
+        # joint equal-weight objective lets grid/fmap error trade against it.
         mw = float(getattr(cfg, "QUANT_QAT_MASK_WEIGHT", 1.0) or 1.0)
 
         def loss_fn(p):
@@ -956,14 +902,10 @@ class QuantizedDetector:
         self._infer_yolo = None
         return {"loss_initial": loss0, "loss_final": loss}
 
-    def trunk(self, images, quant: bool = True, fused_ds: bool | None = None,
-              interpret: bool = False):
+    def trunk(self, images, quant: bool = True):
         if self.graph["trunk"] is None:
-            return self._flax_trunk(images)
-        if fused_ds is None:
-            fused_ds = bool(getattr(self.config, "QUANT_FUSED_DS", False))
-        raw, fmap = _trunk_outputs(self.graph, images, quant,
-                                   fused_ds=fused_ds, interpret=interpret)
+            return self._float_trunk(images)
+        raw, fmap = _trunk_outputs(self.graph, images, quant)
         b, gh, gw = raw.shape[0], raw.shape[1], raw.shape[2]
         nb = self.config.N_BOX
         grid = raw.reshape(b, gh, gw, nb, raw.shape[-1] // nb)
@@ -979,26 +921,28 @@ class QuantizedDetector:
                              image_hw=tuple(self.config.IMAGE_SHAPE[:2]),
                              classes=classes,
                              fast_crop=bool(getattr(self.config,
-                                                    "QUANT_FAST_CROP", False)),
-                             pallas_crop=bool(getattr(self.config,
-                                                      "QUANT_PALLAS_CROP",
-                                                      False)))
+                                                    "QUANT_FAST_CROP", False)))
 
-    def detect_outputs(self, images, use_pallas: bool | None = None,
-                       interpret: bool = False, mesh=None):
+    def select_masks(self, rois, fmap, classes):
+        """[B, R] ROIs + classes → [B, R, 2p, 2p] class-selected masks: the
+        folded class conv under QUANT_FOLD_MASK_SELECT, else the full class
+        conv and a one-hot select (pipelines.select_class)."""
+        if (self.config.QUANT_FOLD_MASK_SELECT
+                and self.graph["mask"][-1].kind == "out_d2s"):
+            return self.mask_branch(rois, fmap, classes=classes)
+        from .pipelines import select_class
+
+        return select_class(self.mask_branch(rois, fmap), classes,
+                            self.config.NUM_CLASSES)
+
+    def detect_outputs(self, images, mesh=None):
         """Same contract as pipelines.detect_outputs, int8 conv stack.
 
-        use_pallas: run the mask branch as the fused per-image Pallas kernel
-        (ops/pallas_mask.py). Default off — measured slower than the XLA
-        int8 conv path at this operating point (see pallas_mask.py).
-
         mesh: a jax.sharding.Mesh shards the batch over its 'data' axis
-        (pod-scale int8 serving; the int8 weights are jit constants and
-        replicate). The pipeline is per-image independent, so no collectives
-        are inserted. Batch must divide by the data-axis size."""
-        if use_pallas is None:
-            use_pallas = False
-        detect_fn = self.detect_fn(use_pallas=use_pallas, interpret=interpret)
+        (the int8 weights are jit constants and replicate). The pipeline is
+        per-image independent, so no collectives are inserted. Batch must
+        divide by the data-axis size."""
+        detect_fn = self.detect_fn()
         if mesh is not None:
             from .parallel.mesh import batch_sharding, place_batch_array
 
@@ -1050,39 +994,20 @@ class QuantizedDetector:
             self._infer_yolo = infer_yolo
         return self._infer_yolo
 
-    def detect_fn(self, use_pallas: bool = False, interpret: bool = False):
+    def detect_fn(self):
         """The jitted images→outputs callable (int8 weights baked in as jit
         constants) — also what export.py AOT-serializes for int8 serving
-        artifacts. Cached per use_pallas flavor."""
-        if self._detect is None or use_pallas != self._detect_is_pallas:
+        artifacts."""
+        if self._detect is None:
             from . import pipelines
 
             config = self.config
-            fused = None
-            if use_pallas:
-                from .ops.pallas_mask import fused_mask_branch, pack_mask_weights
-
-                weights = pack_mask_weights(self.graph, config.NUM_CLASSES)
-
-                def fused(rois, fmap, classes):
-                    return fused_mask_branch(
-                        fmap, rois, classes, weights,
-                        pool=config.MASK_POOL_SIZE,
-                        num_classes=config.NUM_CLASSES, interpret=interpret)
-            elif (getattr(config, "QUANT_FOLD_MASK_SELECT", False)
-                  and self.graph["mask"][-1].kind == "out_d2s"):
-                # fold the per-ROI class selection into the class conv —
-                # kills the one-hot select stage's HBM round trip (r4)
-                def fused(rois, fmap, classes):
-                    return self.mask_branch(rois, fmap, classes=classes)
 
             @jax.jit
             def detect(images):
                 return pipelines.detect_from_callables(
-                    self.trunk, self.mask_branch, images, config,
-                    fused_mask=fused)
+                    self.trunk, self.select_masks, images, config)
 
             self._detect = detect
-            self._detect_is_pallas = use_pallas
             self._detect_sharded = None  # wraps the fn above; rebuild too
         return self._detect

@@ -1,10 +1,11 @@
 """Production serving: dynamic-batching inference for the detect pipeline.
 
 The reference has no serving story (edit-a-script drivers only;
-/root/reference/example/*). Serving a TPU well has three rules: keep ONE
-compiled program (static batch shape — recompiles stall the chip), feed it
-full batches (the MXU is throughput hardware), and decouple request latency
-from batch assembly. This module implements the standard recipe:
+/root/reference/example/*). Serving an accelerator well has three rules:
+keep ONE compiled program (static batch shape — recompiles stall the
+device), feed it full batches (it is throughput hardware), and decouple
+request latency from batch assembly. This module implements the standard
+recipe:
 
   * `BatchingExecutor` — requests enqueue individually; a worker thread
     drains up to `batch_size` of them (waiting at most `max_delay_s` after

@@ -12,24 +12,30 @@ Replaces the reference's Keras compile/fit machinery
    optax.multi_transform whose labels are computed by regex-matching the
    slash-joined parameter path, so "all", "yolo.*", "mask.*" etc. work on the
    param pytree;
- * checkpointing — orbax; a checkpoint is {params, batch_stats, opt_state,
-   step, epoch}, and `load_weights(..., by_name=True, exclude=[...])`
-   restores named subtrees only, mirroring the reference's h5 by_name
-   loading.
+ * checkpointing — a checkpoint is a directory holding `arrays.npz`
+   (params, batch_stats and opt_state leaves keyed by their '/'-joined tree
+   paths) and `meta.json` (step, epoch); `load_weights(..., by_name=True,
+   exclude=[...])` restores named subtrees only, mirroring the reference's
+   h5 by_name loading.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
 import re
+import shutil
 from typing import Any
 
-import flax.struct
 import jax
 import jax.numpy as jnp
+import numpy as np
 import optax
 
 
-@flax.struct.dataclass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class TrainState:
     params: Any
     batch_stats: Any
@@ -160,8 +166,6 @@ def make_optimizer(learning_rate: float, config, params=None,
 
 
 def create_train_state(params, batch_stats, tx) -> TrainState:
-    import jax.numpy as jnp
-
     return TrainState(
         params=params,
         batch_stats=batch_stats,
@@ -171,44 +175,83 @@ def create_train_state(params, batch_stats, tx) -> TrainState:
 
 
 # ---------------------------------------------------------------------------
-# Checkpointing (orbax)
+# Checkpointing (.npz + JSON sidecar)
 # ---------------------------------------------------------------------------
+
+_ARRAYS, _META = "arrays.npz", "meta.json"
+_TREES = ("params", "batch_stats", "opt_state")
 
 
 def save_checkpoint(path: str, state: TrainState, epoch: int = 0):
-    """Save params + batch stats + optimizer moments + step/epoch (orbax).
+    """Save params + batch stats + optimizer moments + step/epoch.
 
     Including opt_state makes checkpoints truly resumable — the reference
     saves weights only (ModelCheckpoint(save_weights_only=True),
     model.py:1026) and resume was manual (initial_epoch commented out,
-    model.py:1050).
+    model.py:1050). The directory is written under a temporary name and
+    renamed into place, so a crash never leaves a half-written `path`.
     """
-    import orbax.checkpoint as ocp
-    import os
-
     path = os.path.abspath(path)
-    ckpt = {
-        "params": jax.device_get(state.params),
-        "batch_stats": jax.device_get(state.batch_stats),
-        "opt_state": jax.device_get(state.opt_state),
-        "step": int(state.step),
-        "epoch": int(epoch),
-    }
-    ckptr = ocp.PyTreeCheckpointer()
-    ckptr.save(path, ckpt, force=True)
+    arrays = {}
+    for tree in _TREES:
+        leaves = jax.tree_util.tree_leaves_with_path(
+            jax.device_get(getattr(state, tree)))
+        for p, leaf in leaves:
+            arrays[f"{tree}/{path_name(p)}"] = np.asarray(leaf)
+    tmp = path + ".tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    np.savez(os.path.join(tmp, _ARRAYS), **arrays)
+    with open(os.path.join(tmp, _META), "w") as f:
+        json.dump({"step": int(state.step), "epoch": int(epoch)}, f)
+    shutil.rmtree(path, ignore_errors=True)
+    os.replace(tmp, path)
+
+
+def _nest(flat: dict) -> dict:
+    tree: dict = {}
+    for key, value in flat.items():
+        node = tree
+        *parents, leaf = key.split("/")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = value
+    return tree
 
 
 def load_checkpoint(path: str, template=None) -> dict:
-    """Restore a checkpoint; pass `template` (a matching pytree, e.g. a dict
-    with a freshly-initialized TrainState's fields) to restore structured
-    leaves like optax NamedTuple states into their original types."""
-    import orbax.checkpoint as ocp
-    import os
+    """Restore a checkpoint as {params, batch_stats, opt_state, step, epoch}.
 
-    ckptr = ocp.PyTreeCheckpointer()
-    if template is not None:
-        return ckptr.restore(os.path.abspath(path), item=template)
-    return ckptr.restore(os.path.abspath(path))
+    Without `template` the trees come back as nested dicts of numpy arrays
+    (opt_state as its raw path-keyed nesting). With `template` (a dict with
+    a freshly-initialized TrainState's trees) every tree is rebuilt into the
+    template's structure — optax NamedTuple states included — and a missing
+    or mis-shaped leaf raises ValueError."""
+    path = os.path.abspath(path)
+    with np.load(os.path.join(path, _ARRAYS)) as z:
+        arrays = {k: z[k] for k in z.files}
+    with open(os.path.join(path, _META)) as f:
+        out = dict(json.load(f))
+    for tree in _TREES:
+        prefix = tree + "/"
+        flat = {k[len(prefix):]: v for k, v in arrays.items()
+                if k.startswith(prefix)}
+        if template is None:
+            out[tree] = _nest(flat)
+            continue
+
+        def pick(p, leaf, flat=flat, tree=tree):
+            key = path_name(p)
+            if key not in flat or np.shape(flat[key]) != np.shape(leaf):
+                raise ValueError(f"checkpoint {path}: {tree}/{key} is missing "
+                                 "or has another shape than the template")
+            return flat.pop(key)
+
+        out[tree] = jax.tree_util.tree_map_with_path(pick, template[tree])
+        if flat:
+            raise ValueError(f"checkpoint {path}: {tree} has leaves the "
+                             f"template lacks: {sorted(flat)[:5]}")
+    return out
 
 
 def resume_train_state(path: str, fresh_state: TrainState):
@@ -232,7 +275,7 @@ def resume_train_state(path: str, fresh_state: TrainState):
     try:
         ckpt = load_checkpoint(path, template=template)
         opt_state = ckpt["opt_state"]
-    except Exception:
+    except ValueError:
         import warnings
 
         raw = load_checkpoint(path)  # structure-free restore

@@ -5,12 +5,12 @@ sub-model and optionally freezes every layer in that path
 (/root/reference/myolo/model.py:854-868), and its ModelCheckpoint writes
 whole-model h5 files (model.py:1026). This module converts such Keras-2
 `save_weights` h5 files into this framework's (params, batch_stats) pytrees
-so reference-trained weights can seed a TPU run:
+so reference-trained weights can seed a run here:
 
     params, stats, report = keras_h5.load_keras_h5(path)
     model.load_weights_from_keras_h5(path)     # by-name merge
 
-Name map (Keras layer → flax subtree), from the reference graph builders:
+Name map (Keras layer → parameter subtree), from the reference graph builders:
   conv1 / conv1_bn                  → backbone/conv1/{conv,bn}       (model.py:42-52)
   conv_dw_{i}[_bn], conv_pw_{i}[_bn], i=1..6  → backbone/block{i}/…  (model.py:55-79)
   …                       i=7..14   → yolo/block{i}/…                (model.py:249-268)
@@ -20,8 +20,8 @@ Name map (Keras layer → flax subtree), from the reference graph builders:
   myolo_mask_deconv / myolo_mask    → mask/mask_deconv / mask_out    (model.py:711-714)
 
 Kernel-layout conversions:
-  depthwise  Keras [kh, kw, cin, mult] → flax grouped-conv [kh, kw, 1, cin·mult]
-  deconv     Keras [kh, kw, out, in]   → flax ConvTranspose [kh, kw, in, out],
+  depthwise  Keras [kh, kw, cin, mult] → grouped conv [kh, kw, 1, cin·mult]
+  deconv     Keras [kh, kw, out, in]   → nn.ConvTranspose [kh, kw, in, out],
              spatially flipped (verified numerically against the
              tf.nn.conv2d_transpose formula in tests/test_keras_h5.py)
 """
@@ -39,7 +39,7 @@ def _bn_entry(weights):
 
 
 def _depthwise_kernel(k):
-    """Keras depthwise [kh, kw, cin, mult] → flax feature_group_count kernel
+    """Keras depthwise [kh, kw, cin, mult] → feature_group_count kernel
     [kh, kw, 1, cin*mult] (output channel g*mult+m corresponds to input
     channel g, matching both frameworks' grouped-channel ordering)."""
     kh, kw, cin, mult = k.shape
@@ -47,7 +47,7 @@ def _depthwise_kernel(k):
 
 
 def _deconv_kernel(k):
-    """Keras Conv2DTranspose [kh, kw, out, in] → flax ConvTranspose
+    """Keras Conv2DTranspose [kh, kw, out, in] → nn.ConvTranspose
     [kh, kw, in, out] with a spatial flip."""
     return np.transpose(k, (0, 1, 3, 2))[::-1, ::-1]
 
@@ -200,7 +200,7 @@ def _convert(weights, name, path_t, kind, params, stats, set_path, report):
 def save_keras_h5(path, params, batch_stats=None):
     """Inverse of load_keras_h5: write our pytrees as a Keras-2-layout
     save_weights h5 (round-trip/test utility; also lets reference users pull
-    TPU-trained weights back into the Keras codebase)."""
+    weights trained here back into the Keras codebase)."""
     import h5py
 
     batch_stats = batch_stats or {}

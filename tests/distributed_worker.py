@@ -2,7 +2,7 @@
 
 Runs as one of N processes (MYOLO_* env triplet), each owning 4 virtual CPU
 devices, and executes the FULL sharded training step over the global
-(N*4)-device mesh with per-process data loading — the pod-scale recipe of
+(N*4)-device mesh with per-process data loading — the multi-host recipe of
 parallel/distributed.py. Prints one line: `RESULT <loss> <global_devices>`.
 """
 

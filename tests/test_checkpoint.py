@@ -163,3 +163,51 @@ def test_checkpoint_rotation(tmp_path):
     # the kept ones are the newest (epoch suffix 3 and 4)
     suffixes = sorted(c.rsplit("_e", 1)[1] for c in ckpts)
     assert suffixes == ["0003", "0004"], suffixes
+
+
+def test_npz_checkpoint_layout_and_by_name_exclude(tmp_path):
+    """A checkpoint is a directory with arrays.npz (leaves keyed by their
+    '/'-joined tree paths) and meta.json; load_weights(by_name=True,
+    exclude=[...]) replaces every named module but the excluded ones."""
+    import json
+
+    from conftest import TinyConfig
+    from mask_yolo_tpu.model import MaskYOLO
+
+    src = MaskYOLO(mode="inference", config=TinyConfig(), seed=0)
+    src.epoch = 5
+    path = tmp_path / "w"
+    src.save_weights(str(path))
+    assert sorted(os.listdir(path)) == ["arrays.npz", "meta.json"]
+    assert json.loads((path / "meta.json").read_text()) == {"step": 0,
+                                                            "epoch": 5}
+    with np.load(path / "arrays.npz") as z:
+        assert "params/backbone/conv1/conv/kernel" in z.files
+        assert "batch_stats/mask/mask_bn1/mean" in z.files
+
+    dst = MaskYOLO(mode="inference", config=TinyConfig(), seed=1)
+    before = jax.tree.map(np.asarray, dst.params)
+    dst.load_weights(str(path), by_name=True, exclude=["mask"])
+    for name in dst.params:
+        want = before[name] if name == "mask" else src.params[name]
+        for a, b in zip(jax.tree.leaves(dst.params[name]),
+                        jax.tree.leaves(want)):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_checkpoint_overwrite_leaves_no_temporary(tmp_path, small_params):
+    """Saving over an existing checkpoint replaces it whole (written under a
+    temporary name, then renamed) and leaves nothing else behind."""
+    tx = optax.adam(1e-3)
+    path = str(tmp_path / "ckpt")
+    state_lib.save_checkpoint(path, state_lib.create_train_state(
+        small_params, {}, tx), epoch=1)
+    bumped = jax.tree.map(lambda x: x + 1.0, small_params)
+    state_lib.save_checkpoint(path, state_lib.create_train_state(
+        bumped, {}, tx), epoch=2)
+    assert os.listdir(tmp_path) == ["ckpt"]
+    loaded = state_lib.load_checkpoint(path)
+    assert loaded["epoch"] == 2
+    np.testing.assert_array_equal(
+        loaded["params"]["yolo"]["conv_23"]["bias"],
+        np.asarray(bumped["yolo"]["conv_23"]["bias"]))

@@ -1,6 +1,6 @@
 """COCO-JSON loader tests (data/coco.py): RLE codecs, segmentation decode,
 a full Dataset→COCO-JSON→Dataset round trip, and the >MASK_TOP_K-survivors
-detect behavior (VERDICT r2 missing #2 / weak #3)."""
+detect behavior."""
 
 import os
 
@@ -178,12 +178,12 @@ def test_mask_top_k_with_more_survivors(rng):
     def trunk(images):
         return jnp.asarray(grid), fmap_stub
 
-    def mask_branch(rois, fmap):
+    def select_masks(rois, fmap, classes):
         r = rois.shape[1]
-        return jnp.ones((1, r, mh, mh, nc), jnp.float32)  # solid masks
+        return jnp.ones((1, r, mh, mh), jnp.float32)  # solid masks
 
     out = {k: np.asarray(v) for k, v in detect_from_callables(
-        trunk, mask_branch, jnp.zeros((1, *cfg.IMAGE_SHAPE), jnp.float32),
+        trunk, select_masks, jnp.zeros((1, *cfg.IMAGE_SHAPE), jnp.float32),
         cfg).items()}
 
     k, kp = cfg.DETECTION_MAX_INSTANCES, cfg.MASK_TOP_K
@@ -269,9 +269,8 @@ def test_predict_cli_end_to_end(tmp_path):
          "--config-json", str(tmp_path / "ckpt" / "config.json"),
          "--images", str(img_dir), "--out", str(out_json),
          "--batch-size", "2", "--score-threshold", "0.0"],
-        # 43 s uncontended; this runner has ONE host core, so a concurrent
-        # training run + suite worker can stretch the subprocess's jit
-        # compiles past 900 s (observed r5) — budget for the worst case
+        # ~43 s uncontended; a loaded host can stretch the subprocess's jit
+        # compiles far past that — budget for the worst case
         capture_output=True, text=True, env=env, cwd=repo, timeout=2400)
     assert proc.returncode == 0, proc.stderr[-2000:]
     results = json.loads(out_json.read_text())

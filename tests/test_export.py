@@ -3,7 +3,7 @@
 
 The reference has no export/deployment format at all (every driver script
 rebuilds the Keras graph from Python + .h5 — /root/reference/myolo/model.py:
-756-803); jax.export is the TPU-native replacement this suite covers."""
+756-803); jax.export is the replacement this suite covers."""
 
 import numpy as np
 import pytest
@@ -75,13 +75,13 @@ def test_float_input_is_quantized_to_wire_dtype(tiny_model, tmp_path, rng):
 
 
 def test_multi_platform_artifact_runs_on_cpu(tiny_model, tmp_path, rng):
-    """Cross-platform lowering: one artifact exported for BOTH cpu and tpu
+    """Cross-platform lowering: one artifact exported for BOTH cpu and cuda
     (the deployment pattern — export on a dev box, serve on either) loads
     and runs on this CPU process and matches the live model."""
     model, cfg = tiny_model
     path = tmp_path / "detect_multi.mytpu"
-    header = model.export_model(path, platforms=["cpu", "tpu"])
-    assert sorted(header["platforms"]) == ["cpu", "tpu"]
+    header = model.export_model(path, platforms=["cpu", "cuda"])
+    assert sorted(header["platforms"]) == ["cpu", "cuda"]
 
     det = ExportedDetector.load(path)
     imgs = (rng.rand(2, *cfg.IMAGE_SHAPE) * 255).astype(np.uint8)
@@ -173,5 +173,27 @@ def test_float32_artifact_normalizes_integer_input(tiny_model, tmp_path, rng):
     u8 = (rng.rand(2, *cfg.IMAGE_SHAPE) * 255).astype(np.uint8)
     got = det.detect_batch(u8)  # integer input → /255 normalization
     ref = det.detect_batch(u8.astype(np.float32) / 255.0)
+    for k in ref:
+        assert np.array_equal(np.asarray(got[k]), np.asarray(ref[k])), k
+
+
+def test_export_needs_no_flatbuffers(tiny_model, tmp_path, rng, monkeypatch):
+    """jax's own Exported.serialize/deserialize need the flatbuffers
+    package, which a GPU serving host may lack; the container format
+    stores the StableHLO bytecode and the signature itself."""
+    import jax
+
+    def refuse(*_, **__):
+        raise ImportError("flatbuffers is not installed")
+
+    monkeypatch.setattr(jax.export.Exported, "serialize", refuse)
+    monkeypatch.setattr(jax.export, "deserialize", refuse)
+    model, cfg = tiny_model
+    path = tmp_path / "detect_nofb.mytpu"
+    model.export_model(path, batch_size=2)
+    det = ExportedDetector.load(path)
+    imgs = (rng.rand(2, *cfg.IMAGE_SHAPE) * 255).astype(np.uint8)
+    got = det.detect_batch(imgs)
+    ref = model.detect_batch(imgs)
     for k in ref:
         assert np.array_equal(np.asarray(got[k]), np.asarray(ref[k])), k

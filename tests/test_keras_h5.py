@@ -10,10 +10,10 @@ from mask_yolo_tpu.utils import keras_h5
 
 
 def test_deconv_kernel_conversion_matches_tf_semantics(rng):
-    """flax ConvTranspose with the converted kernel == tf.nn.conv2d_transpose
+    """nn.ConvTranspose with the converted kernel == tf.nn.conv2d_transpose
     with the original Keras [kh, kw, out, in] kernel (stride 2, kernel 2,
     SAME): y[2i+d, 2j+e, o] = sum_c x[i,j,c] * K[d,e,o,c]."""
-    import flax.linen as nn
+    from mask_yolo_tpu.models import nn
 
     h = w = 3
     cin, cout = 2, 3
@@ -35,9 +35,9 @@ def test_deconv_kernel_conversion_matches_tf_semantics(rng):
 
 
 def test_depthwise_kernel_conversion(rng):
-    """flax grouped conv with the converted kernel == per-channel depthwise
-    conv with the Keras [kh, kw, cin, 1] kernel."""
-    import flax.linen as nn
+    """nn.Conv grouped conv with the converted kernel == per-channel
+    depthwise conv with the Keras [kh, kw, cin, 1] kernel."""
+    from mask_yolo_tpu.models import nn
 
     cin = 4
     x = rng.rand(1, 6, 6, cin).astype(np.float32)

@@ -431,7 +431,7 @@ def test_infer_yolo_per_class_k_equivalence(rng):
 
 
 def test_boundbox_reference_surface():
-    """BoundBox (VERDICT r3 'missing' #3): reference-compatible box object
+    """BoundBox: reference-compatible box object
     (myolo_utils.py:161-185) — attribute access, get_label()/get_score(),
     argmax-of-classes derivation — that is ALSO a dict so framework code
     (visualize.draw_boxes_mpl, existing user code) keeps working."""

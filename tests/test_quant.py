@@ -142,9 +142,9 @@ def test_maskyolo_quantize_api(setup, rng):
 
 
 def test_hybrid_quantization_resnet_fpn(rng):
-    """Non-mobilenet backbones quantize in HYBRID mode (flax trunk + int8
+    """Non-mobilenet backbones quantize in HYBRID mode (float trunk + int8
     mask head) instead of raising — detect outputs stay close to the float
-    path (r1 verdict weak #8)."""
+    path."""
     import jax
     import jax.numpy as jnp
 
@@ -365,7 +365,7 @@ def test_qat_finetune_reduces_error(setup):
     # the int8 path still tracks f32 (the loss is a COMBINED normalized
     # MSE over grid+fmap+mask: an individual term's absolute error may move
     # either way at this random-init scale, so the loss drop above is the
-    # contract — quality evidence lives in the TPU A/B, docs/PERFORMANCE.md)
+    # contract — quality evidence lives in docs/QUALITY.md)
     g_q1, _ = jax.jit(lambda im: det.trunk(im, quant=True))(images)
     scale = float(np.abs(np.asarray(g_f)).max())
     assert float(np.abs(np.asarray(g_q1) - np.asarray(g_f)).max()) \
@@ -390,8 +390,8 @@ def test_maskyolo_quantize_finetune_api(setup, rng):
 
 
 def test_int8_infer_yolo_contract_and_parity(setup):
-    """QuantizedDetector.infer_yolo_outputs (VERDICT r3 #2: detection-only
-    inference through the int8 trunk) — same output contract as
+    """QuantizedDetector.infer_yolo_outputs (detection-only inference
+    through the int8 trunk) — same output contract as
     pipelines.infer_yolo_outputs, box decode within int8 noise of f32, and
     the top-scoring detection lands on the same box."""
     cfg, net, variables, images = setup

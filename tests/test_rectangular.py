@@ -1,4 +1,4 @@
-"""Non-square IMAGE_SHAPE end-to-end coverage (VERDICT r2 weak #4).
+"""Non-square IMAGE_SHAPE end-to-end coverage.
 
 IMAGE_SHAPE is [H, W, 3]; the device decoder normalizes x by GRID_W and y by
 GRID_H (ops/boxes.py:54-59). These tests prove the host encoder, the host

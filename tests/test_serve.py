@@ -1,6 +1,6 @@
 """Serving tests: dynamic batching correctness + the HTTP front end.
 
-The reference has no serving path at all; serve.py is the TPU-native
+The reference has no serving path at all; serve.py is the standard
 pattern — one static-batch compiled program fed by a batching queue."""
 
 import concurrent.futures

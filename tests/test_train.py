@@ -197,7 +197,7 @@ def test_train_with_augmentation_uses_generator(tmp_path):
 
 
 def test_steps_per_epoch_caps_run_epoch(setup):
-    """STEPS_PER_EPOCH wiring: max_steps caps the epoch (VERDICT r1 weak #5)."""
+    """STEPS_PER_EPOCH wiring: max_steps caps the epoch."""
     cfg, net, variables, gen = setup
     tx = state_lib.make_optimizer(1e-3, cfg)
     step = trainer_lib.make_train_step(net, cfg, tx, mode="training")

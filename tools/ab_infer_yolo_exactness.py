@@ -9,12 +9,12 @@ that condition actually HOLDS for a trained checkpoint on real eval images,
 and by how much margin: it reports the max/p99 per-(image, class)
 above-threshold box count (the condition variable) plus an elementwise
 output comparison per variant. Evidence for choosing a CocoStyleConfig
-default (docs/PERFORMANCE.md "infer_yolo at 416²").
+default (ROADMAP A5).
 
 Reference semantics being preserved: the per-class greedy suppression of
 /root/reference/myolo/myolo_utils.py:67-80.
 
-Run (TPU):
+Run (GPU):
   python tools/ab_infer_yolo_exactness.py \
       --weights quality_run_coco_r4t/best_weights \
       --data quality_run_coco_r4t/coco_eval

@@ -3,12 +3,12 @@
 Standalone version of the int8 tail of tools/quality_run_coco.py so the
 quantization ablation (per-tensor vs per-channel activation scales, with or
 without label-free QAT) can be re-run on any checkpoint without retraining —
-e.g. on the best weights of a long segmented run. Rebuilds the reference's
+e.g. on the best weights of a long run. Rebuilds the reference's
 missing quantization story (the reference has none; quantization is a
 capability this framework adds on top of /root/reference/myolo/model.py's
 float-only inference graph).
 
-Run (TPU):
+Run (GPU):
   python tools/eval_int8.py --weights quality_run_coco_r3b/weights \
       --data quality_run_coco_r3b/coco_eval --variants f32 pc pc_qat \
       --out asset/coco80_int8_r3b.json
@@ -57,7 +57,7 @@ def main():
                          "reference's behavior — "
                          "/root/reference/myolo/model.py:926-931). The A/B "
                          "that prices the masks-for-top-K fallback where "
-                         "scenes exceed K instances (VERDICT r3 #3).")
+                         "scenes exceed K instances.")
     ap.add_argument("--out", default=None, help="write results JSON here")
     args = ap.parse_args()
 
@@ -114,7 +114,7 @@ def main():
         "pc": lambda: quantized(True, False),
         "pt_qat": lambda: quantized(False, True),
         "pc_qat": lambda: quantized(True, True),
-        # VERDICT r3 #4 ablations (close the 81-class int8 mask residual):
+        # ablations that close the 81-class int8 mask residual:
         # mask-weighted QAT distillation — the residual lives in the mask
         # branch, so weight its term 4× in the finetune objective
         "pc_qat_mw": lambda: quantized(True, True, QUANT_QAT_MASK_WEIGHT=4.0),

@@ -1,5 +1,5 @@
-"""Materialize the textured 81-class COCO-format datasets for the r5
-campaign (CLAUDE.md "In-flight work") without touching the TPU.
+"""Materialize the textured 81-class COCO-format datasets of the 81-class
+quality campaign (docs/QUALITY.md) on the CPU, ahead of training.
 
 Pure-CPU and idempotent: writes the same three splits (same seeds/counts/
 paths) that `tools/quality_run_coco.py --textured --train-images 6000

@@ -1,6 +1,6 @@
 """Stage-level timing of the int8 infer_yolo pipeline at the 416²/81-class
-operating point — the detection-only complement of tools/profile_stages_416.py
-(VERDICT r4 weak #3: the 81-class NMS sweep was attributed, never isolated).
+operating point — the detection-only complement of tools/profile_stages_416.py,
+isolating the 81-class NMS sweep.
 
 Cumulative prefixes of the infer_yolo pipeline (pipelines.py
 infer_yolo_from_callables), delta-timed with the bench.py harness; successive

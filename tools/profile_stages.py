@@ -1,8 +1,8 @@
-"""Stage-level timing of the detect pipeline on the real TPU.
+"""Stage-level timing of the detect pipeline on the GPU.
 
 Uses the same delta-timing harness as bench.py (scalar-checksum fetch, delta
-between N1 and N2 scan iterations cancels the ~30 ms RPC overhead of this
-runner). Each stage is timed as a cumulative prefix of the pipeline so the
+between N1 and N2 scan iterations cancels the fixed dispatch and fetch
+overhead). Each stage is timed as a cumulative prefix of the pipeline so the
 differences isolate per-stage cost:
 
   trunk            backbone + YOLO head
@@ -12,8 +12,6 @@ differences isolate per-stage cost:
   full             + on-chip mask paste to 224² + threshold
 
 Run: python tools/profile_stages.py [batch_size] [stage ...]
-(one stage per process keeps each run inside this runner's compile window;
-XLA programs are cached persistently so reruns are cheap)
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Quality run: train Mask-YOLO on Shapes to convergence on the TPU, then
+"""Quality run: train Mask-YOLO on Shapes to convergence on the GPU, then
 report box/mask AP and save qualitative overlays.
 
 This produces the quantitative numbers the reference never published

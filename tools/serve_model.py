@@ -23,7 +23,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--weights", default=None,
-                    help="orbax checkpoint dir (or use --artifact)")
+                    help="checkpoint dir (or use --artifact)")
     ap.add_argument("--artifact", default=None,
                     help="serve a StableHLO export (tools/export_model.py) "
                          "instead of a checkpoint")
